@@ -8,7 +8,7 @@ and denoise is its only heavy stage.  Break it down:
   istft      window-folded inverse sub-GEMMs + shifted-pad overlap-add
   full       whole reduce_noise pass
 
-Each timed as a K-chained jitted scan (CLAUDE.md timing discipline).
+Each timed as a K-chained jitted scan (benchmarks/timing.py).
 Stage history (measured): mask as a C_in=1 33x7 spatial conv 215.7 ms ->
 banded GEMMs 5.4; overlap-add as .at[idx].add scatter 20.6 -> shifted-pad
 sums ~0 (fused); full chain 265.7 -> 25.0 -> 20.0 ms after the split-GEMM
@@ -84,7 +84,7 @@ def main():
                 out = fn(carry, *a[1:])
                 lead = out[0] if isinstance(out, tuple) else out
                 # REAL inter-step dependency: a `* 0` bump is folded away and
-                # XLA hoists the body out of the scan (CLAUDE.md int8 lesson)
+                # XLA hoists the body out of the scan (a `* 0` carry is folded)
                 bump = jnp.sum(lead).astype(carry.dtype) * 1e-12
                 return carry + bump, None
             c, _ = jax.lax.scan(body, a[0], jnp.arange(K))

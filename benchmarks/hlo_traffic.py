@@ -6,7 +6,7 @@ size of their operands + outputs — a crude but effective way to find layout
 copies, unfused elementwise chains, and gather materializations (it is how
 the denoise split-GEMM/window-folding/squared-mask restructure was found:
 the frames tensor and its copies were ~1.5 GB/step of a 12 GB/step program;
-see docs/performance.md "Second pass").
+the denoise second pass).
 
 Caveats: sizes are logical shape bytes (padding/tiling not counted); fusion
 internals are invisible (a fusion counts operands + outputs only, which is

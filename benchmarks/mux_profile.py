@@ -1,8 +1,8 @@
 """Host-side phase profile of the Multiplexer serving loop.
 
-VERDICT r2 item 3: the 256-stream host-inclusive number (~4.5 ms/window) is
-30x below device batch capacity — before optimizing, split one tick into its
-phases to see where the time goes:
+The host-inclusive many-stream number can sit far below device batch
+capacity — before optimizing, split one tick into its phases to see where
+the time goes:
 
     gather   — per-stream ring polls + window pops (host Python/ctypes)
     stage    — copying windows + per-stream calibration into the batch

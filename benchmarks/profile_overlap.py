@@ -1,10 +1,10 @@
-"""Per-component timing of the overlap serving step at batch 512 on TPU.
+"""Per-component timing of the overlap serving step at batch 512 on the card.
 
 Breaks the 2.56 s-window -> label step into its pieces so optimization
 effort goes where the milliseconds are:
 
   dsp_f32        masked-prefix -> feature image (HIGHEST-precision DFT GEMMs)
-  dsp_default    same with default (single-pass bf16 MXU) precision
+  dsp_default    same with default precision (TF32 on an H100)
   model_f32      feature image -> logits, f32 params
   model_bf16     same with bf16 compute
   model_f32_bnfold   f32 with inference-BN folded into the preceding convs

@@ -1,4 +1,4 @@
-"""Overlap-detector training throughput on TPU.
+"""Overlap-detector training throughput on the device.
 
 The reference trains with Keras `model.fit` on whatever host accelerator TF
 finds; it publishes no speed numbers (SURVEY §6).  Here the whole epoch is
@@ -7,10 +7,10 @@ forward + weighted-CCE + backward + Adadelta update fused), so the epoch
 dispatches once and syncs twice (loss/acc floats).
 
 Measures steady-state seconds/epoch and windows/second at the reference
-batch size (32, `overlap_detector.py:421`) and at a TPU-shaped batch (256),
+batch size (32, `overlap_detector.py:421`) and at a larger batch (256),
 training geometry (B, 128, 151, 3) f32.
 
-Run live:  python benchmarks/train_bench.py
+Run on the card:  python benchmarks/train_bench.py
 """
 
 import json

@@ -3,7 +3,7 @@
 The reference's speaker registration runs Keras ``fit`` for 500 + 20 epochs
 at batch 16/8 on the enrolled corpus — minutes of wall clock per
 registration attempt (and the acc >= 0.80 gate can demand several attempts).
-Here the entire two-phase fine-tune is two ``lax.scan`` programs on the TPU;
+Here the entire two-phase fine-tune is two ``lax.scan`` programs on the device;
 this benchmark measures one full attempt (500 + 20 epochs, reference
 hyperparameters) on a realistic enrolled corpus: 3 speakers x ~23 windows
 (60 s each).

@@ -123,10 +123,6 @@ def main():
                          "table; the rest a reduced sweep)")
     args = ap.parse_args()
 
-    import jax
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_platforms", "cpu")
-
     out = {}
     for i, mode in enumerate(args.modes):
         nw = args.windows if i == 0 else max(20, args.windows // 4)

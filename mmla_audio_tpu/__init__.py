@@ -1,18 +1,18 @@
-"""mmla_audio_tpu — a TPU-native streaming audio-analytics framework.
+"""mmla_audio_tpu — a streaming audio-analytics framework on one accelerator.
 
 A ground-up rebuild of the capabilities of ``lizaibeim/mmla-audio`` (overlap
-detection + speaker identification over rolling conversation windows) designed
-for TPU hardware: the entire feature + inference + fine-tune path is expressed
-as fixed-shape JAX/XLA programs (with Pallas kernels for the fused DSP
-front-end), scaled over device meshes with ``jax.sharding``, and fed by a thin
-native host runtime (C++ ring buffer + WAV IO) instead of disk round-trips.
+detection + speaker identification over rolling conversation windows) for an
+NVIDIA GPU: the entire feature + inference + fine-tune path is expressed as
+fixed-shape JAX/XLA programs, scaled over device meshes with
+``jax.sharding``, and fed by a thin native host runtime (C++ ring buffer +
+WAV IO) instead of disk round-trips.
 
 Subpackages
 -----------
 core       typed configuration (sample rates, window geometry, model dims, mesh)
-ops        DSP kernels: STFT/mel/ZCR/MFCC/denoise/normalize (jnp + Pallas)
+ops        DSP as GEMMs: STFT/mel/ZCR/MFCC/denoise/normalize (jnp)
 vad        voice-activity gating as jittable scans (WebRTC-style hysteresis)
-models     Flax models: OverlapResBLSTM (2D) and SpeakerResBLSTM (1D)
+models     plain-JAX models: OverlapResBLSTM (2D) and SpeakerResBLSTM (1D)
 train      Optax training: base pretrain, transfer-learn registration loop
 parallel   mesh construction + data-parallel sharding of window batches
 streaming  host capture shims, native ring buffer, streaming sessions

@@ -5,7 +5,7 @@ The reference's commented experiment harness
 sweep of test-split ratios and seeds, appending accuracies to ``acc.txt``;
 ``plot_accuracy.R`` renders a ggplot violin+jitter of that file.  Here:
 ``run_sweep`` produces the same ``acc.txt`` rows (ratio<TAB>accuracy) with
-the on-TPU transfer learner, and ``render_violin_html`` draws the
+the on-device transfer learner, and ``render_violin_html`` draws the
 distribution per ratio (kernel-density violin + jittered points) as a
 standalone SVG/HTML — no R required.
 """

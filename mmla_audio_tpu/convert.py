@@ -6,9 +6,9 @@ this mount, but users of the original repo have them).  Keras
 order; per layer: Conv [kernel(HWIO), bias], BatchNorm [gamma, beta,
 moving_mean, moving_var], Bidirectional(LSTM) [fwd_kernel(C,4H),
 fwd_recurrent(H,4H), fwd_bias(4H), bwd_kernel, bwd_recurrent, bwd_bias]
-(gate order i,f,c,o — identical to models.layers.LSTM), Dense [kernel, bias].
+(gate order i,f,c,o — identical to models.layers.lstm), Dense [kernel, bias].
 Conv kernels are HWIO in both frameworks, so no transposition is needed;
-this module only re-nests the flat list into the Flax variable tree.
+this module only re-nests the flat list into the model variable tree.
 
 Layer order is Keras's topological graph order, recovered from the shapes in
 the SHIPPED checkpoint indexes (the ground truth, not the builder source):
@@ -238,7 +238,7 @@ def load_checkpoint_variables(path, kind: str = "auto", *,
     ``variables`` directory itself, or the bundle prefix
     (``.../variables/variables``).  No TensorFlow involved: the bundle is
     parsed by :mod:`mmla_audio_tpu.tfbundle`, ordered like
-    ``model.get_weights()``, and re-nested into a Flax variable tree.
+    ``model.get_weights()``, and re-nested into the model variable tree.
 
         variables = load_checkpoint_variables(
             "path/to/OverlapDetection/timit/models/timit2.0")

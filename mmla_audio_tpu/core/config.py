@@ -130,13 +130,10 @@ class VadConfig:
     # threads across windows), "energy" = calibrated log-RMS threshold (the
     # fast opt-out: agrees with the faithful decision 1.000 on clearly-voiced
     # / clearly-silent windows but only 0.500 on 0-10 dB-SNR window labels —
-    # PARITY.md).  Measured cost of the faithful default (BENCH_r03 /
-    # docs/performance.md): +9 % batched serve at b512; B=1 sessions
-    # auto-route the detector to the native host engine (~14.5 ms window-to-
-    # decision, under the 50 ms p50 target) when it is available
-    # (StreamingSession host_preprocess="auto").  The float GMM
-    # approximation (vad/gmm.py) is a benchmark/reference probe, not a
-    # serving option.
+    # PARITY.md).  B=1 sessions auto-route the detector to the native host
+    # engine when it is available (StreamingSession host_preprocess="auto").
+    # The float GMM approximation (vad/gmm.py) is a benchmark/reference
+    # probe, not a serving option.
     decision: str = "webrtc"
 
     def __post_init__(self):
@@ -166,16 +163,16 @@ class DenoiseConfig:
     passes_live: int = 1
     passes_post: int = 3
     passes_edge: int = 4
-    # MXU precision of the STFT/ISTFT/smoothing GEMMs.  TPU f32 matmuls
-    # default to ONE bf16 pass (which measurably flips labels vs a CPU
-    # run — the round-2 parity fix); "highest" (6 passes) is the measured
-    # bit-stable parity setting and the default (0.15 % int16 flips vs
-    # CPU, all ±1 LSB ties).  "high" (3 passes) is a measured fast mode —
-    # denoise 19.9→14.0 ms, serve chain 48.1→42.3 ms at b512, label
-    # agreement 1.000, batch-invariant — but flips 12 %/26 % of denoised
-    # PCM16 samples (1×/3× passes, up to 55 LSB), so it is only for
-    # deployments that consume labels, not waveforms
-    # (benchmarks/precision_probe.py; docs/performance.md).
+    # Precision of the STFT/ISTFT/smoothing GEMMs (a jax.lax.Precision
+    # name).  "highest" is true FP32 and the default: the denoised PCM16
+    # waveform then matches a CPU float32 run up to ±1 LSB rounding ties.
+    # On an H100 "default" lets float32 dots run in TF32 (about three
+    # decimal digits), and "high" is TF32 as well (JAX maps HIGH to TF32 on
+    # GPUs that have it), so on this card there is no middle rung.
+    # Card vs CPU (chip_smoke.py phase 4, 32 windows, NVIDIA H100 80GB
+    # HBM3, 700 W): at "highest" 0.103 % of int16 samples differ, each by
+    # 1 LSB; at "default" (TF32) 59.5 % differ, by up to 81 LSB — TF32 is
+    # for deployments that consume labels, not waveforms.
     precision: str = "highest"
 
 
@@ -268,7 +265,7 @@ class TransferConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout.  Windows are independent, so the primary axis is
-    pure data parallelism over ICI; `model` stays 1 for these model sizes."""
+    pure data parallelism; `model` stays 1 for these model sizes."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -1,11 +1,11 @@
-"""Deployment export + compiled-parity check (the TFLite path, TPU-style).
+"""Deployment export + compiled-parity check (the TFLite path, in XLA).
 
 The reference "deploys" by converting the SavedModel to a fixed-shape TFLite
 flatbuffer and asserting per-sample argmax parity between backends
 (`tfl_convert.py:29-88` — the repo's only assertion-based check).  The
-TPU-native equivalent: parameters exported via Orbax + the serving function
-AOT-compiled for a pinned input shape; ``parity_check`` asserts per-sample
-argmax agreement between the eager and compiled programs.
+equivalent here: parameters exported as an npz checkpoint + the serving
+function AOT-compiled for a pinned input shape; ``parity_check`` asserts
+per-sample argmax agreement between the eager and compiled programs.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ batch 1 (`record_on_pc.py:114-173`).  Here the entire decision is ONE compiled
 XLA program over a fixed-shape device buffer:
 
     (B, 40960) int16-scale samples + (B,) valid counts
-        -> featurize (fused GEMM DSP) -> model forward -> argmax + silent gate
+        -> featurize (GEMM DSP) -> model forward -> argmax + silent gate
         -> (B,) int32 labels
 
 Silent windows (< 4000 valid samples post-VAD, `record_on_pc.py:142`,
@@ -88,38 +88,30 @@ class OverlapPredictor:
     def __init__(self, variables: Dict[str, Any],
                  model_cfg: OverlapModelConfig = OverlapModelConfig(),
                  feat_cfg: OverlapFeatureConfig = OverlapFeatureConfig(),
-                 compute_dtype=None, use_pallas: bool = False,
+                 compute_dtype=None,
                  matmul_precision: str | None = "auto",
                  silent_threshold: int = 4000):
         """``compute_dtype=jnp.bfloat16`` runs the model forward in bf16
-        (params cast at trace time; DSP stays f32 for feature parity) —
-        ~1.4x faster on TPU.  ``use_pallas`` swaps the featurizer for the
-        fused VMEM kernel.  ``matmul_precision="highest"`` forces full-f32
-        GEMM/conv accumulation in the model trunk (TPU's default is one bf16
-        MXU pass) for bit-stable TPU<->CPU labels; see
-        benchmarks/tpu_cpu_parity.py for the measured agreement/cost.
-        ``"auto"`` (the default) resolves to the fast mode HERE: the overlap
-        trunk is conv-heavy, "highest" costs 2.2x, and default-mode label
-        agreement already measures 1.000 — unlike SpeakerPredictor, whose
-        "auto" resolves to "highest" (~10 % there for 0.984 -> 1.000).
+        (params cast at trace time; DSP stays f32 for feature parity).
+        ``matmul_precision="highest"`` forces true-FP32 dots/convs in the
+        model trunk; the backend's default lets an H100 run float32 dots and
+        convs in TF32.  ``"auto"`` (the default) resolves to the backend's
+        default HERE — the overlap trunk is conv-heavy — unlike
+        SpeakerPredictor, whose "auto" resolves to "highest".  Against a CPU
+        float32 run (chip_smoke.py phase 4, 32 windows, random init, NVIDIA
+        H100 80GB HBM3 at 700 W): default — labels 1.0000 agreement, max
+        prob drift 7.1e-4; "highest" — 1.0000, 7.3e-5.  PARITY.md has the
+        table.
         ``silent_threshold``: post-VAD sample count below which the window
         is SILENT (`record_on_pc.py:142`); pass ``cfg.vad.silent_samples``
         to mirror a tuned session gate."""
         if matmul_precision == "auto":
             matmul_precision = None
-        if use_pallas and (not feat_cfg.png_quantize or not feat_cfg.flip_mel_axis):
-            # the fused kernel hardcodes the PNG quantize + row flip; a cfg
-            # that disables them would silently diverge between the paths
-            raise ValueError(
-                "use_pallas requires png_quantize=True and flip_mel_axis="
-                "True (the kernel hardcodes both); use the jnp featurizer "
-                "for non-default feature configs")
         self.model = OverlapResBLSTM(model_cfg)
         self.variables = variables
         self.feat_cfg = feat_cfg
         self.silent_threshold = silent_threshold
         self.compute_dtype = compute_dtype
-        self.use_pallas = use_pallas
         self.matmul_precision = matmul_precision
         self._jit = jax.jit(self._forward)
 
@@ -133,13 +125,7 @@ class OverlapPredictor:
         cfg = self.feat_cfg
         # librosa.load scale: int16 -> [-1, 1)
         y = _masked_prefix(buf.astype(jnp.float32), n, cfg.n_samples) / 32768.0
-        if self.use_pallas:
-            from mmla_audio_tpu.ops.pallas_features import (
-                overlap_model_input_pallas,
-            )
-            img = overlap_model_input_pallas(y, cfg)            # (B, 128, 151, 3)
-        else:
-            img = overlap_model_input(y, cfg)
+        img = overlap_model_input(y, cfg)                      # (B, 128, 151, 3)
         logits = self.apply_model(variables, img)
         probs = jax.nn.softmax(logits, axis=-1)
         labels = jnp.argmax(probs, axis=-1).astype(jnp.int32)
@@ -184,14 +170,16 @@ class SpeakerPredictor:
                  compute_dtype=None,
                  matmul_precision: str | None = "auto"):
         """``matmul_precision``: ``"auto"`` (the default) resolves to
-        ``"highest"`` — full-f32 GEMM accumulation in the trunk.  Measured
-        basis (PARITY.md, benchmarks/tpu_cpu_parity.py): the speaker model
-        is recurrence-bound, so "highest" costs only ~10 % at b512 while
-        lifting TPU<->CPU label agreement from 0.984 to 1.000 — the
-        reference's own parity bar is argmax agreement (tfl_convert.py:
-        86-87), so the faithful setting is the default here.  (The overlap
-        predictor keeps the fast default: conv-heavy, 2.2x for the same
-        guarantee.)  Pass ``None`` for the fast single-bf16-pass mode."""
+        ``"highest"`` — true-FP32 dots/convs in the trunk, where the
+        backend's default may be TF32 (an H100's).  The reference's own
+        parity bar is argmax agreement (tfl_convert.py:86-87), and the speaker
+        model's 630-way head is the one whose labels move with the
+        precision, so the faithful setting is the default here; the overlap
+        predictor keeps the backend's default.  Against a CPU float32 run
+        (chip_smoke.py phase 4, 32 windows, random init, NVIDIA H100 80GB
+        HBM3 at 700 W): "highest" — labels 1.0000, max prob drift 6.1e-9;
+        default (TF32) — 1.0000, 1.0e-5.  Pass ``None`` for the backend's
+        default (the labels-only throughput knob)."""
         if matmul_precision == "auto":
             matmul_precision = "highest"
         self.model = SpeakerResBLSTM(model_cfg, head_units=head_units)

@@ -1,13 +1,8 @@
-from mmla_audio_tpu.models.layers import LSTM, BiLSTM, KerasBatchNorm
 from mmla_audio_tpu.models.overlap import OverlapResBLSTM
-from mmla_audio_tpu.models.speaker import SpeakerResBLSTM, SpeakerTrunk, l2_penalty
+from mmla_audio_tpu.models.speaker import SpeakerResBLSTM, l2_penalty
 
 __all__ = [
-    "LSTM",
-    "BiLSTM",
-    "KerasBatchNorm",
     "OverlapResBLSTM",
     "SpeakerResBLSTM",
-    "SpeakerTrunk",
     "l2_penalty",
 ]

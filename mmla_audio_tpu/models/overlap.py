@@ -18,73 +18,83 @@ Returns logits; apply ``jax.nn.softmax`` (or use the Keras-CCE losses in
 
 from __future__ import annotations
 
-import flax.linen as nn
-import functools
+import dataclasses
 
-# Keras Conv/Dense defaults: glorot_uniform kernels (Flax defaults to
-# lecun_normal) — from-scratch training must start from the reference's
-# weight distribution (layers.LSTM already replicates the Keras LSTM inits)
-_KerasConv = functools.partial(
-    nn.Conv, kernel_init=nn.initializers.glorot_uniform())
-_KerasDense = functools.partial(
-    nn.Dense, kernel_init=nn.initializers.glorot_uniform())
 import jax
 import jax.numpy as jnp
 
 from mmla_audio_tpu.core.config import OverlapModelConfig
-from mmla_audio_tpu.models.layers import BiLSTM, KerasBatchNorm, leaky_relu
+from mmla_audio_tpu.models import layers as L
 
 __all__ = ["OverlapResBLSTM"]
 
 
-class ResBlock2D(nn.Module):
+def _block_init(rng, name, c_in, filters, pool):
     """Pre-activation residual block (overlap_detector.py:227-256)."""
-
-    filters: int
-    pool: bool = False
-    bn_momentum: float = 0.99
-    bn_eps: float = 1e-3
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        if self.pool:
-            res = _KerasConv(self.filters, (1, 1), strides=(2, 2), padding="SAME",
-                          name="shortcut")(res)
-        out = KerasBatchNorm(self.bn_momentum, self.bn_eps)(x, train)
-        out = nn.elu(out)
-        out = _KerasConv(self.filters, (3, 3), padding="SAME")(out)
-        out = KerasBatchNorm(self.bn_momentum, self.bn_eps)(out, train)
-        out = nn.elu(out)
-        out = _KerasConv(self.filters, (4, 1), padding="SAME")(out)
-        if self.pool:
-            out = nn.max_pool(out, (2, 2), strides=(2, 2), padding="SAME")
-        return res + out
+    p, s = {}, {}
+    if pool:
+        p["shortcut"] = L.conv_init(rng, (name, "shortcut"), (1, 1), c_in, filters)
+    p["KerasBatchNorm_0"], s["KerasBatchNorm_0"] = L.batch_norm_init(c_in)
+    p["Conv_0"] = L.conv_init(rng, (name, "Conv_0"), (3, 3), c_in, filters)
+    p["KerasBatchNorm_1"], s["KerasBatchNorm_1"] = L.batch_norm_init(filters)
+    p["Conv_1"] = L.conv_init(rng, (name, "Conv_1"), (4, 1), filters, filters)
+    return p, s
 
 
-class OverlapResBLSTM(nn.Module):
+def _block(p, s, x, pool, train, bn):
+    res = L.conv(p["shortcut"], x, strides=2) if pool else x
+    out, s0 = L.batch_norm(p["KerasBatchNorm_0"], s["KerasBatchNorm_0"], x, train, *bn)
+    out = L.conv(p["Conv_0"], jax.nn.elu(out))
+    out, s1 = L.batch_norm(p["KerasBatchNorm_1"], s["KerasBatchNorm_1"], out, train, *bn)
+    out = L.conv(p["Conv_1"], jax.nn.elu(out))
+    if pool:
+        out = L.max_pool(out, 2, 2)
+    return res + out, {"KerasBatchNorm_0": s0, "KerasBatchNorm_1": s1}
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapResBLSTM:
     cfg: OverlapModelConfig = OverlapModelConfig()
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def _blocks(self):
+        for stage, f in enumerate(self.cfg.stage_filters):
+            for block in range(self.cfg.blocks_per_stage):
+                yield f"stage{stage}_block{block}", f, block == 0
+
+    def init_variables(self, rng, batch: int = 1, input_shape=(128, 151, 3)):
+        """``{"params", "batch_stats"}`` for inputs ``(batch, *input_shape)``
+        (the batch does not change any shape; it is kept for callers)."""
         cfg = self.cfg
+        params = {"stem": L.conv_init(rng, ("stem",), (1, 1), input_shape[-1],
+                                      cfg.stem_filters)}
+        stats = {}
+        c = cfg.stem_filters
+        for name, f, pool in self._blocks():
+            params[name], stats[name] = _block_init(rng, name, c, f, pool)
+            c = f
+        params["BiLSTM_0"] = L.bilstm_init(rng, ("BiLSTM_0",), c, cfg.lstm_units)
+        params["head"] = L.dense_init(rng, ("head",), 2 * cfg.lstm_units,
+                                      cfg.num_classes)
+        return {"params": params, "batch_stats": stats}
+
+    def _forward(self, params, stats, x, train, rng):
+        cfg = self.cfg
+        bn = (cfg.bn_momentum, cfg.bn_eps)
         if cfg.input_scale != 1.0:
             x = x * cfg.input_scale
-        net = _KerasConv(cfg.stem_filters, (1, 1), padding="SAME", name="stem")(x)
-        for stage, f in enumerate(cfg.stage_filters):
-            for block in range(cfg.blocks_per_stage):
-                net = ResBlock2D(f, pool=(block == 0),
-                                 bn_momentum=cfg.bn_momentum,
-                                 bn_eps=cfg.bn_eps,
-                                 name=f"stage{stage}_block{block}")(net, train)
+        net = L.conv(params["stem"], x)
+        new_stats = {}
+        for name, _, pool in self._blocks():
+            net, new_stats[name] = _block(params[name], stats[name], net, pool,
+                                          train, bn)
         net = jnp.mean(net, axis=1)                    # mel-axis mean -> (B, T, C)
-        net = BiLSTM(cfg.lstm_units)(net)              # (B, 512)
-        net = nn.Dropout(cfg.dropout, deterministic=not train)(net)
-        net = leaky_relu(net)
-        logits = _KerasDense(cfg.num_classes, name="head")(net)
-        return logits
+        net = L.bilstm(params["BiLSTM_0"], net)        # (B, 512)
+        net = L.dropout(net, cfg.dropout, rng, ("Dropout_0",))
+        net = L.leaky_relu(net)
+        return L.dense(params["head"], net), new_stats
 
-    def init_variables(self, rng, batch: int = 1,
-                       input_shape=(128, 151, 3)):
-        dummy = jnp.zeros((batch,) + tuple(input_shape), jnp.float32)
-        return self.init({"params": rng}, dummy)
+    def apply(self, variables, x, train: bool = False, rngs=None, mutable=()):
+        """Logits ``(B, num_classes)``; ``train=True`` uses batch statistics
+        and dropout from ``rngs["dropout"]``.  With ``mutable`` the result is
+        ``(logits, {"batch_stats": updated})``."""
+        return L.apply_variables(self._forward, variables, x, train, rngs, mutable)

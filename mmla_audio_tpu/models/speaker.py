@@ -20,101 +20,107 @@ same penalty from the param tree (coefficients recorded per conv path).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
-import flax.linen as nn
-import functools
-
-# Keras Conv/Dense defaults: glorot_uniform kernels (Flax defaults to
-# lecun_normal) — from-scratch training must start from the reference's
-# weight distribution (layers.LSTM already replicates the Keras LSTM inits)
-_KerasConv = functools.partial(
-    nn.Conv, kernel_init=nn.initializers.glorot_uniform())
-_KerasDense = functools.partial(
-    nn.Dense, kernel_init=nn.initializers.glorot_uniform())
 import jax
 import jax.numpy as jnp
 
 from mmla_audio_tpu.core.config import SpeakerModelConfig
+from mmla_audio_tpu.models import layers as L
 
-from mmla_audio_tpu.models.layers import BiLSTM, KerasBatchNorm
-
-__all__ = ["SpeakerTrunk", "SpeakerResBLSTM", "l2_penalty"]
-
-
-class ResUnit1D(nn.Module):
-    """res_unit (speaker_identification.py:168-190).  Note the asymmetry vs
-    the 2D block: when pooling, the *main path input* is MaxPooled before BN
-    and the shortcut is a strided 1x1 of the original input."""
-
-    filters: int
-    pool: bool = False
-    bn_momentum: float = 0.99
-    bn_eps: float = 1e-3
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        if self.pool:
-            x = nn.max_pool(x, (2,), strides=(2,), padding="SAME")
-            res = _KerasConv(self.filters, (1,), strides=(2,), padding="SAME",
-                          name="shortcut")(res)
-        out = KerasBatchNorm(self.bn_momentum, self.bn_eps)(x, train)
-        out = nn.relu(out)
-        out = _KerasConv(self.filters, (3,), padding="SAME", name="conv_a")(out)
-        out = KerasBatchNorm(self.bn_momentum, self.bn_eps)(out, train)
-        out = nn.relu(out)
-        out = _KerasConv(self.filters, (3,), padding="SAME", name="conv_b")(out)
-        return res + out
+__all__ = ["SpeakerResBLSTM", "l2_penalty"]
 
 
-class SpeakerTrunk(nn.Module):
-    """Everything up to (and including) the post-BiLSTM dropout — the
-    ``layers[-2]`` slice point of the reference transfer learner."""
-
-    cfg: SpeakerModelConfig = SpeakerModelConfig()
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        cfg = self.cfg
-        net = _KerasConv(cfg.stem_filters, (cfg.stem_kernel,), padding="SAME",
-                      name="stem")(x)
-        # L2 on the inner convs of non-pooled units (stages 1/2) is applied in
-        # the loss by ``l2_penalty`` below — Keras regularizers live in the
-        # loss, not the layer, so the unit itself carries no l2 state.
-        for stage, f in enumerate(cfg.stage_filters):
-            for block in range(cfg.blocks_per_stage):
-                net = ResUnit1D(f, pool=(block == 0),
-                                bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps,
-                                name=f"stage{stage}_unit{block}")(net, train)
-        net = KerasBatchNorm(cfg.bn_momentum, cfg.bn_eps)(net, train)
-        net = nn.relu(net)
-        net = nn.Dropout(cfg.dropout_trunk, deterministic=not train)(net)
-        # Keras AveragePooling1D(4): valid padding, stride = pool size.
-        net = nn.avg_pool(net, (cfg.avg_pool,), strides=(cfg.avg_pool,),
-                          padding="VALID")
-        net = BiLSTM(cfg.lstm_units)(net)                       # (B, 512)
-        net = nn.Dropout(cfg.dropout_head, deterministic=not train)(net)
-        return net
+def _unit_init(rng, path, c_in, filters, pool):
+    """res_unit (speaker_identification.py:168-190)."""
+    p, s = {}, {}
+    if pool:
+        p["shortcut"] = L.conv_init(rng, path + ("shortcut",), (1,), c_in, filters)
+    p["KerasBatchNorm_0"], s["KerasBatchNorm_0"] = L.batch_norm_init(c_in)
+    p["conv_a"] = L.conv_init(rng, path + ("conv_a",), (3,), c_in, filters)
+    p["KerasBatchNorm_1"], s["KerasBatchNorm_1"] = L.batch_norm_init(filters)
+    p["conv_b"] = L.conv_init(rng, path + ("conv_b",), (3,), filters, filters)
+    return p, s
 
 
-class SpeakerResBLSTM(nn.Module):
+def _unit(p, s, x, pool, train, bn):
+    """Note the asymmetry vs the 2D block: when pooling, the *main path input*
+    is MaxPooled before BN and the shortcut is a strided 1x1 of the original
+    input."""
+    res = x
+    if pool:
+        x = L.max_pool(x, 2, 2)
+        res = L.conv(p["shortcut"], res, strides=2)
+    out, s0 = L.batch_norm(p["KerasBatchNorm_0"], s["KerasBatchNorm_0"], x, train, *bn)
+    out = L.conv(p["conv_a"], jax.nn.relu(out))
+    out, s1 = L.batch_norm(p["KerasBatchNorm_1"], s["KerasBatchNorm_1"], out, train, *bn)
+    out = L.conv(p["conv_b"], jax.nn.relu(out))
+    return res + out, {"KerasBatchNorm_0": s0, "KerasBatchNorm_1": s1}
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeakerResBLSTM:
     """Trunk + Dense head.  ``head_units=None`` -> cfg.num_speakers (TIMIT
     630, softmax in loss); transfer-learned models use a fresh smaller head
-    with sigmoid activation applied by the caller/loss."""
+    with sigmoid activation applied by the caller/loss.
+
+    The trunk is everything up to (and including) the post-BiLSTM dropout —
+    the ``layers[-2]`` slice point of the reference transfer learner."""
 
     cfg: SpeakerModelConfig = SpeakerModelConfig()
     head_units: int | None = None
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        units = self.head_units or self.cfg.num_speakers
-        net = SpeakerTrunk(self.cfg, name="trunk")(x, train)
-        return _KerasDense(units, name="head")(net)
+    def _units(self):
+        for stage, f in enumerate(self.cfg.stage_filters):
+            for block in range(self.cfg.blocks_per_stage):
+                yield f"stage{stage}_unit{block}", f, block == 0
 
     def init_variables(self, rng, batch: int = 1, input_shape=(256, 39)):
-        dummy = jnp.zeros((batch,) + tuple(input_shape), jnp.float32)
-        return self.init({"params": rng}, dummy)
+        """``{"params", "batch_stats"}`` for inputs ``(batch, *input_shape)``
+        (the batch does not change any shape; it is kept for callers)."""
+        cfg = self.cfg
+        trunk = {"stem": L.conv_init(rng, ("trunk", "stem"), (cfg.stem_kernel,),
+                                     input_shape[-1], cfg.stem_filters)}
+        stats = {}
+        c = cfg.stem_filters
+        for name, f, pool in self._units():
+            trunk[name], stats[name] = _unit_init(rng, ("trunk", name), c, f, pool)
+            c = f
+        trunk["KerasBatchNorm_0"], stats["KerasBatchNorm_0"] = L.batch_norm_init(c)
+        trunk["BiLSTM_0"] = L.bilstm_init(rng, ("trunk", "BiLSTM_0"), c,
+                                          cfg.lstm_units)
+        head = L.dense_init(rng, ("head",), 2 * cfg.lstm_units,
+                            self.head_units or cfg.num_speakers)
+        return {"params": {"trunk": trunk, "head": head},
+                "batch_stats": {"trunk": stats}}
+
+    def _forward(self, params, stats, x, train, rng):
+        cfg = self.cfg
+        bn = (cfg.bn_momentum, cfg.bn_eps)
+        p, s = params["trunk"], stats["trunk"]
+        new = {}
+        net = L.conv(p["stem"], x)
+        # L2 on the inner convs of non-pooled units (stages 1/2) is applied in
+        # the loss by ``l2_penalty`` below — Keras regularizers live in the
+        # loss, not the layer, so the unit itself carries no l2 state.
+        for name, _, pool in self._units():
+            net, new[name] = _unit(p[name], s[name], net, pool, train, bn)
+        net, new["KerasBatchNorm_0"] = L.batch_norm(
+            p["KerasBatchNorm_0"], s["KerasBatchNorm_0"], net, train, *bn)
+        net = jax.nn.relu(net)
+        net = L.dropout(net, cfg.dropout_trunk, rng, ("trunk", "Dropout_0"))
+        # Keras AveragePooling1D(4): valid padding, stride = pool size.
+        net = L.avg_pool(net, cfg.avg_pool)
+        net = L.bilstm(p["BiLSTM_0"], net)                       # (B, 512)
+        net = L.dropout(net, cfg.dropout_head, rng, ("trunk", "Dropout_1"))
+        return L.dense(params["head"], net), {"trunk": new}
+
+    def apply(self, variables, x, train: bool = False, rngs=None, mutable=()):
+        """Logits ``(B, head units)``; ``train=True`` uses batch statistics
+        and dropout from ``rngs["dropout"]``.  With ``mutable`` the result is
+        ``(logits, {"batch_stats": updated})``."""
+        return L.apply_variables(self._forward, variables, x, train, rngs, mutable)
 
 
 def l2_penalty(params: Dict[str, Any], cfg: SpeakerModelConfig = SpeakerModelConfig()

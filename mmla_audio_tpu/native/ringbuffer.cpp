@@ -131,8 +131,8 @@ void rb_clear(RingBuffer* rb) {
 // `indices[0..popped)`.  Stops after `limit` pops.  Returns pops.
 //
 // One ctypes call replaces N per-stream Python polls + N row copies — the
-// host gather cost of a tick becomes a single C loop over memcpys
-// (VERDICT r2 item 3).  SPSC safety: this is the consumer side, called only
+// host gather cost of a tick becomes a single C loop over memcpys.
+// SPSC safety: this is the consumer side, called only
 // from the serving thread.
 uint64_t rb_pop_batch(RingBuffer** rings, uint64_t n_rings, uint64_t start,
                       const uint8_t* active, uint64_t limit, uint64_t n_win,

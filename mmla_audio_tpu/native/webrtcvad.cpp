@@ -1,14 +1,12 @@
 // Full WebRTC voice-activity detector, fixed-point, host-native.
 //
 // Why this exists alongside the JAX engine (mmla_audio_tpu/vad/webrtc.py):
-// the filterbank is a cascade of sample-serial int16 IIRs.  On the TPU that
-// work is dependency-chain-bound on the scalar path (~99 ms of a 102 ms
-// B=1 engine step, measured by benchmarks/webrtc_profile.py; an 8-way scan
-// unroll was neutral because the serial op count is invariant).  On the
-// host CPU the same ~0.5M chained integer ops take well under a
-// millisecond.  So: single-stream / offline host paths call this engine;
-// batched device serving keeps the vmapped JAX engine where each scan step
-// amortizes into a (B,)-lane VPU op.
+// the filterbank is a cascade of sample-serial int16 IIRs: a long chain of
+// tiny dependent steps, which an accelerator runs one launched step at a
+// time.  On the host CPU the same ~0.5M chained integer ops take well under
+// a millisecond.  So: single-stream / offline host paths call this engine;
+// batched device serving keeps the vmapped JAX engine, where each scan step
+// amortizes into one (B,)-wide vector op.
 //
 // The algorithm is a line-for-line translation of the project's
 // transcription golden (tests/golden/webrtc_vad_ref.py — WebRTC's

@@ -15,7 +15,7 @@ post-time ``audio*`` files and x4 on the Pi.  Algorithm (noisereduce 2.x
      normalization).  The signal is zero-padded by 30 000 samples each side
      before filtering and trimmed after (noisereduce's chunk padding).
 
-TPU mapping: STFT/ISTFT are the same DFT-as-GEMM bases as ``ops.spectral``;
+Device mapping: STFT/ISTFT are the same DFT-as-GEMM bases as ``ops.spectral``;
 the mask smoothing is one small 2-D convolution; the overlap-add is a
 scatter-add.  Everything is fixed-shape, so a whole batch of windows
 denoises in one fused program, replacing the reference's per-window
@@ -115,7 +115,7 @@ def _bases_split(n_fft: int, hop: int):
     hop-block ROWS, so the STFT GEMM runs directly on hop-strided signal
     blocks and the (..., T, n_fft) frames tensor is never materialized (the
     framing gather + its layout copies were ~1.5 GB/step of the b512 denoise
-    traffic — HLO audit, benchmarks/serve_roofline.py).  Inverse: the j-th
+    traffic — HLO audit).  Inverse: the j-th
     hop-block COLUMNS of the synthesis-WINDOW-FOLDED inverse bases, so each
     GEMM emits one shifted overlap-add part and the separate windowing
     multiply (a full frames-tensor broadcast) disappears."""
@@ -184,13 +184,12 @@ def _istft(re: jnp.ndarray, im: jnp.ndarray, n_fft: int, hop: int,
         # hop divides n_fft (the noisereduce geometry: 1024/256): each frame
         # contributes r = n_fft//hop aligned hop-blocks, so overlap-add is r
         # shifted pads summed — pure vector ops.  The scatter formulation
-        # (.at[idx].add over T*n_fft indices) serializes on TPU and
-        # dominated the whole denoise chain (benchmarks/denoise_profile.py).
+        # (.at[idx].add over T*n_fft indices) serializes its updates and
+        # dominated the whole denoise chain on the previous accelerator.
         # Each part comes STRAIGHT from a GEMM against the window-folded
         # hop-block inverse bases: the (..., T, n_fft) inverse-frames tensor,
         # its synthesis-window broadcast multiply, and the block
-        # reshape+layout-copy never exist (HLO audit,
-        # benchmarks/serve_roofline.py).
+        # reshape+layout-copy never exist (HLO audit).
         r = n_fft // hop
         _, _, ic, isn = _bases_split(n_fft, hop)
         parts = []
@@ -255,8 +254,8 @@ def _smoothing_factors(sr: int, n_fft: int, hop: int,
     """The smoothing kernel's rank-1 factors (it is an outer product of two
     triangular windows), each carrying half the sum-normalization.  The
     smoothing is applied as two banded-GEMM 1-D convolutions — the 2-D
-    C_in=1 spatial conv form runs off the MXU and measured 216 ms of the
-    266 ms b512 denoise chain (benchmarks/denoise_profile.py)."""
+    C_in=1 spatial conv form maps poorly onto matrix units and dominated
+    the b512 denoise chain on the previous accelerator."""
     n_grad_freq = int(freq_hz / (sr / (n_fft / 2)))
     n_grad_time = int(time_ms / ((hop / sr) * 1000))
     v_f = np.concatenate([
@@ -300,8 +299,7 @@ def gate_mask(re: jnp.ndarray, im: jnp.ndarray, noise_thresh: jnp.ndarray,
 
     Equivalent decisions to ``amp_to_db(mag, reduce_axes=(-2, -1)) > nt``
     up to fp rounding exactly at the boundary; removes the abs/sqrt/log
-    full-spectrogram materializations (~0.8 GB/step at b512 — HLO audit,
-    benchmarks/serve_roofline.py).  THE one encoding of the gate decision;
+    full-spectrogram materializations (~0.8 GB/step at b512 — HLO audit).  THE one encoding of the gate decision;
     benchmarks import it rather than restating the constants."""
     magsq = jnp.maximum(re * re + im * im, _AMIN * _AMIN)
     thr_sq = jnp.power(10.0, noise_thresh / 10.0)
@@ -361,16 +359,16 @@ def reduce_noise(y: jnp.ndarray, noise_thresh: jnp.ndarray,
         mask = gate_mask(re, im, noise_thresh, cfg.prop_decrease)
         # 'same' 2-D smoothing convolution.  The kernel is rank-1
         # (outer(v_f, v_t)), so it factors into two 1-D convolutions, each
-        # expressed as a banded-matrix GEMM — MXU-resident.  The literal
-        # C_in=1 spatial-conv form runs off the MXU and measured 216 ms of
-        # the 266 ms b512 chain (benchmarks/denoise_profile.py).
+        # expressed as a banded-matrix GEMM.  The literal C_in=1
+        # spatial-conv form maps poorly onto matrix units
+        # (benchmarks/denoise_profile.py times both).
         if mf is None:
             mf = jnp.asarray(_band_matrix(v_f, mask.shape[-1]))   # (K, K)
             mt_t = jnp.asarray(
                 _band_matrix(v_t, mask.shape[-2]).T)              # (T, T)
         # feature-parity contraction: the smoothed mask multiplies the
-        # STFT every downstream feature consumes — TPU's default single
-        # bf16 MXU pass would diverge from the CPU golden.  Both smoothing
+        # STFT every downstream feature consumes — a GPU's default TF32
+        # pass would diverge from the CPU golden.  Both smoothing
         # contractions are expressed as plain matmuls (mt.T @ x for the
         # time axis, NOT einsum('...tk,ts->...sk')): XLA:CPU lowers the
         # batched einsum with a different accumulation order than the

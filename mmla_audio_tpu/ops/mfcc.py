@@ -7,7 +7,7 @@ ceplifter 22, log-energy in c0, preemphasis 0.97, rectangular window) computed
 on raw int16-valued samples, plus the reference's hand-rolled delta
 (regression over +-2 frames with edge padding).
 
-TPU mapping: framing is a static gather; the 512-point real DFT and the DCT
+Device mapping: framing is a static gather; the 512-point real DFT and the DCT
 are matmuls against precomputed bases; the mel projection is one more matmul.
 Streaming windows are fixed-shape: the signal arrives in a constant-size
 buffer plus a valid-sample count, and frame validity is handled by masking +
@@ -176,8 +176,9 @@ def delta(feat: jnp.ndarray, N: int = 2,
     rows = jnp.take(feat, idx.reshape(-1), axis=-2)               # (..., T*(2N+1), C)
     rows = rows.reshape(feat.shape[:-2] + (T, offsets.size, feat.shape[-1]))
     w = jnp.asarray(offsets, jnp.float32)
-    # feature-parity contraction: HIGHEST like every other GEMM here (the
-    # TPU default single bf16 pass would drift 26 of the 39 feature dims)
+    # feature-parity contraction: HIGHEST like every other GEMM here (a
+    # reduced-precision pass, e.g. TF32 at a GPU's default, drifts the
+    # feature dims)
     return jnp.einsum("k,...tkc->...tc", w, rows,
                       precision=jax.lax.Precision.HIGHEST) / denom
 

@@ -1,16 +1,16 @@
-"""Spectral DSP primitives, built for the MXU.
+"""Spectral DSP primitives, built as matrix products.
 
 Replaces the librosa calls of the reference front-end
 (`OverlapDetection/scripts/overlap_features_generator.py:65-101`) with
 fixed-shape JAX ops.  The design rule: every per-frame transform is a single
-batched matmul so XLA tiles it onto the 128x128 systolic array —
+batched matmul that XLA hands to the GEMM libraries —
 
     frames (B*T, win) @ [cos|sin] basis (win, 2*(n_fft//2+1))  ->  spectrum
     power   (B, T, bins) @ mel_fb.T (bins, n_mels)             ->  mel
 
 instead of an FFT micro-kernel with awkward shapes.  At these sizes
-(win 400-512, 151-256 frames/window) the DFT-as-GEMM is both faster on TPU
-and exactly reproducible against the NumPy golden.
+(win 400-512, 151-256 frames/window) the DFT-as-GEMM is exactly
+reproducible against the NumPy golden.
 
 Semantics follow librosa 0.8 (the reference pins numpy 1.21 / numba 0.53,
 `setup.py:32-41`): centered STFT with reflect padding, periodic Hann,
@@ -100,8 +100,9 @@ def stft_power(y: jnp.ndarray, n_fft: int, hop_length: int,
         n_frames = 1 + (n_samples - n_fft) // hop_length
     frames = frame_signal(y, n_fft, hop_length, n_frames)       # (..., T, win)
     cos, sin = _dft_basis(n_fft, n_fft, windowed=True)
-    # HIGHEST: these GEMMs define features the labels depend on; on TPU the
-    # default matmul precision is bf16-accumulated and breaks golden parity.
+    # HIGHEST: these GEMMs define features the labels depend on; a float32
+    # dot at default precision may run in TF32 on a GPU (about three decimal
+    # digits) and break golden parity.
     re = jnp.matmul(frames, cos, preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST)
     im = jnp.matmul(frames, sin, preferred_element_type=jnp.float32,

@@ -1,13 +1,14 @@
 """Device mesh + sharding helpers.
 
-The reference is single-process batch-size-1 (SURVEY §2.5) — the TPU-native
-scaling story is pure data parallelism: conversation windows are independent,
-so a window batch shards over the ``data`` ICI axis and parameters replicate.
+The reference is single-process batch-size-1 (SURVEY §2.5) — the scaling
+story here is pure data parallelism: conversation windows are independent,
+so a window batch shards over the ``data`` axis and parameters replicate.
 The ``model`` axis exists for forward-compat (these models are a few M params,
 TP is not warranted) and stays size 1 by default.
 
 All sharding goes through ``jax.jit`` with ``NamedSharding`` constraints —
-XLA inserts the (all-reduce of gradients, etc.) collectives over ICI.
+XLA inserts the collectives (all-reduce of gradients, etc.), which NCCL runs
+over NVLink between the cards of a host.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def param_shardings(tree: Any, mesh: Mesh, axis: Optional[str] = None):
     scale/shift, odd-sized heads).
 
     This is GSPMD layout-level TP: conv kernels shard on C_out, dense/LSTM
-    kernels on their feature dim, and XLA's partitioner inserts the ICI
+    kernels on their feature dim, and XLA's partitioner inserts the
     collectives (all-gathers on the sharded-contraction boundaries) under
     ``jit``.  Sharding is layout, not algorithm, but it changes reduction
     ORDER: a single step agrees with the replicated layout to f32 ulp-level
@@ -111,7 +112,7 @@ class DataParallel:
         self.mesh = mesh
         self.fn = fn
         # Input shardings are committed by device_put in __call__ (arity of
-        # *batch varies); jit propagates them and inserts ICI collectives.
+        # *batch varies); jit propagates them and inserts the collectives.
         self._jit = jax.jit(fn, donate_argnums=(0,) if donate_state else ())
 
     def __call__(self, state, *batch):

@@ -15,7 +15,7 @@ Sessions also reproduce the surrounding behavior: 10 s ambient calibration
 (threshold + denoise profile + Ambient_Noise.wav artifact), per-session log
 under ``experiment/logs/<timestamp>.txt``, optional window recordings under
 ``experiment/recordings/real-time/<timestamp>/wav``, suspend/resume, and the
-speaker registration flow (60 s enrollment clips -> corpus -> on-TPU
+speaker registration flow (60 s enrollment clips -> corpus -> on-device
 transfer-learn until accuracy >= 0.80 -> identify).
 """
 
@@ -126,17 +126,14 @@ class StreamingSession:
         # backend + native C++ engine) and ship only the trimmed window to
         # the device for features+model.  This is the single-stream
         # low-latency arrangement for the reference-faithful detector: the
-        # webrtc filterbank is sample-serial and dependency-chain-bound on
-        # the TPU scalar path (~99 ms/window at B=1, sub-ms on host —
-        # benchmarks/webrtc_profile.py), while batched serving amortizes it
+        # webrtc filterbank is a sample-serial dependency chain of tiny
+        # steps, sub-ms per window on the host
+        # (benchmarks/webrtc_profile.py), while batched serving amortizes it
         # across streams and stays fully on-device.  True requires
         # cfg.vad.decision == "webrtc" and the native library; "auto" (the
-        # default) takes the split exactly when both hold — a B=1 session
-        # with the faithful default decision lands on the ~14.5 ms
-        # window-to-decision arrangement (BENCH b1_webrtc_host_ms) instead
-        # of the ~133 ms pure-device scan, and degrades to the on-device
-        # engine (bit-identical decisions, still real-time against the
-        # 2.56 s window period) where the native engine can't build.
+        # default) takes the split exactly when both hold, and degrades to
+        # the on-device engine (bit-identical decisions) where the native
+        # engine can't build.  bench.py's b1_* fields time the split.
         self.telemetry = telemetry
         self.gate = gate
         if host_preprocess == "auto":

@@ -12,14 +12,14 @@ Two execution styles:
 * ``fit_on_device`` (see ``transfer.py``) — the whole multi-epoch fine-tune
   as ONE compiled program for small enrolled corpora: the 500-epoch
   registration loop that dominates reference latency becomes a single
-  ``lax.scan`` on the TPU.
+  ``lax.scan`` on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,12 +28,16 @@ import optax
 __all__ = ["TrainState", "Trainer", "pad_to_batches"]
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Any
     batch_stats: Any
     opt_state: Any
     step: jnp.ndarray
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
@@ -51,7 +55,7 @@ def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
 
 
 class Trainer:
-    """Generic trainer for a Flax model with (params, batch_stats).
+    """Generic trainer for a model with (params, batch_stats).
 
     ``loss_fn(logits, y) -> per-example loss``;  the step adds
     ``extra_penalty_fn(params)`` (e.g. l2 kernel regularizers) to the batch
@@ -214,7 +218,7 @@ class Trainer:
 
         ``mesh``: a ``jax.sharding.Mesh`` — every batch shards across the
         first (data) axis inside the scanned epoch and XLA all-reduces the
-        gradients over ICI.  Parameters replicate, unless the mesh has a
+        gradients across devices.  Parameters replicate, unless the mesh has a
         distinct trailing model axis of size > 1, in which case the
         parameter tree (and its optimizer-state mirrors) spreads over it
         (``parallel.param_shardings``).  ``batch_size`` is global and must

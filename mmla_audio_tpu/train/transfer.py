@@ -1,4 +1,4 @@
-"""Speaker-registration transfer learning as an on-TPU program.
+"""Speaker-registration transfer learning as an on-device program.
 
 Reference flow (`speaker_identification.py:401-503` +
 `SpeakerIdentification/scripts/record_on_pc.py:340-346`): slice the TIMIT
@@ -11,7 +11,7 @@ accuracy >= 0.80.
 The 500-epoch loop is the latency bottleneck of registration in the
 reference (minutes of Keras fit on batch-16).  Here the *entire two-phase
 fine-tune* runs as two compiled ``lax.scan`` programs over epochs — the
-enrolled corpus (a few hundred (256, 39) windows) lives in HBM for the whole
+enrolled corpus (a few hundred (256, 39) windows) lives on the device for the whole
 fine-tune and the host only sees the final params + accuracy.
 
 Behavioral notes preserved from the reference:
@@ -82,8 +82,7 @@ class TransferLearner:
     # -- model pieces -----------------------------------------------------------
     def _init_variables(self, rng) -> Dict[str, Any]:
         """Fresh head + base trunk (the 'slice at layers[-2]' graft)."""
-        dummy = jnp.zeros((1, 256, 39), jnp.float32)
-        variables = self.model.init({"params": rng}, dummy)
+        variables = self.model.init_variables(rng)
         params = dict(variables["params"])
         params["trunk"] = self.base_variables["params"]["trunk"]
         out = {"params": params}

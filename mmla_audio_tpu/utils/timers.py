@@ -4,7 +4,7 @@ The reference's tracing is ad-hoc ``time.time()`` prints
 (`overlap_detector_run.py:21-72`, `record_on_pi.py:63-69`).  Here: a
 ``StageTimer`` accumulating per-stage wall clock + an ``RtfMeter`` computing
 the BASELINE metrics (real-time factor, p50 window-to-decision), and a
-context manager around ``jax.profiler.trace`` for real TPU traces.
+context manager around ``jax.profiler.trace`` for device traces.
 """
 
 from __future__ import annotations

@@ -10,14 +10,15 @@ per-window program, bit-identical to the pure-Python transcription golden
 (``tests/golden/webrtc_vad_ref.py``; see ``tests/test_vad_webrtc.py`` for
 the frame-level bit-parity suite across synthetic + noise audio).
 
-TPU-native structure:
+Device structure:
 
 * The split/downsampling filters are sample-serial IIRs whose state is
   truncated every sample — inherently sequential, expressed as ``lax.scan``
   over samples with tiny int32 bodies.  Single-stream latency is therefore
   scan-bound, but the whole engine vmaps over a batch axis, so the
   multiplexed serving path amortizes the scans across streams (each scan
-  step becomes a (B,)-vector VPU op).
+  step becomes one (B,)-vector op; on a GPU each step is launched work, so
+  the step count, not the batch, sets the engine's time).
 * Everything per-channel/per-Gaussian is vectorized over ``(2, 6)`` arrays;
   the only frame-serial part is the GMM adaptation itself, which is the
   outer ``lax.scan`` carry.
@@ -163,22 +164,26 @@ def webrtc_init(batch_shape: tuple[int, ...] = ()) -> WebRtcVadState:
 # ---------------------------------------------------------------------------
 
 
+# Inner unroll factors of the serial scans, largest first (``_unroll_factor``).
+UNROLL_LADDER = (8, 4, 2)
+
+
 def _unroll_factor(n: int) -> int:
     """Serial scans are scan-step-overhead-bound at small batch; unrolling U
     iterations per step (pure restructuring — arithmetic order unchanged,
     bit-exactness preserved) divides the step count.  Short sequences skip
     the scan entirely.
 
-    Ladder depth A/B'd on chip (benchmarks/webrtc_batched_probe.py, b512
-    K=32): (8,4,2) 6.15 ms/step, 16-max 5.99, 48-max 5.89 — decisions
-    bit-identical across ladders, so deeper unrolling is only a ~4 % engine
-    win (~0.5 % of the serve chain).  NOT taken: the 48-max ladder blew up
-    XLA:CPU compile time (tests/test_vad_webrtc.py sat >20 min in compile
-    vs ~2 min total before), so the suite cost dwarfs the on-chip gain.
-    (8,4,2) stays."""
+    The ladder is read at trace time.  Deeper ladders blow up XLA:CPU
+    compile time (a 48-max ladder kept tests/test_vad_webrtc.py in compile
+    for >20 min vs ~2 min).  ``chip_smoke.py`` times the b512 engine with
+    this ladder and with none (decisions bit-identical): 90.3 ms with
+    (8,4,2) vs 480.8 ms with no unroll per b512 call, on an NVIDIA H100
+    80GB HBM3 at a 700 W power limit — on a GPU each scan step is launched
+    work, so the unroll divides the engine's time.  (8,4,2) stays."""
     if n <= 16:
         return n
-    for u in (8, 4, 2):
+    for u in UNROLL_LADDER:
         if n % u == 0:
             return u
     return 1
@@ -618,9 +623,9 @@ class VadBox:
     post-time calls to reproduce that cross-file state ordering.
 
     Host calls are backed by the native C++ engine when available (the
-    sample-serial filterbank is dependency-chain-bound on the TPU scalar
-    path — ~99 ms/window at B=1, sub-ms on the host CPU; see
-    ``vad.native``), falling back to the jitted JAX engine.  Both are
+    sample-serial filterbank is a long dependency chain of tiny steps,
+    sub-ms per window on the host CPU; see ``vad.native``), falling back to
+    the jitted JAX engine.  Both are
     bit-identical to the transcription golden, and ``state`` exposes /
     adopts the JAX :class:`WebRtcVadState` either way, so device-side scans
     (e.g. the post-time per-segment program) interoperate with the native

@@ -1,7 +1,6 @@
 """Literal fixed-point transcription of WebRTC's voice-activity detector.
 
-This is the round-3 golden for the per-frame VAD *decision* — the missing
-fidelity piece flagged in VERDICT.md round 2.  The reference pipeline's every
+This is the golden for the per-frame VAD *decision*.  The reference pipeline's every
 silent gate and VAD trim flows through ``webrtcvad.Vad(3)``
 (`/root/reference/OverlapDetection/scripts/record_on_pc.py:33,229-295`),
 which wraps WebRTC's published C sources:

@@ -187,7 +187,7 @@ def test_precision_config_threads_into_gemms():
     """``DenoiseConfig.precision`` must reach every STFT/ISTFT/smoothing
     dot in the traced program (CPU ignores precision at runtime, so this
     pins the *trace*: a silent drop of the flag would only surface as a
-    TPU-only parity regression)."""
+    GPU-only parity regression)."""
     import dataclasses
     import jax
 

@@ -70,9 +70,9 @@ def test_int16_input_matches_float32():
 
 
 def test_matmul_precision_knob():
-    """``matmul_precision="highest"`` forces full-f32 GEMM accumulation for
-    strict TPU<->CPU label parity (benchmarks/tpu_cpu_parity.py measures
-    agreement/cost on hardware).  On CPU the knob is a no-op numerically —
+    """``matmul_precision="highest"`` forces true-FP32 dots/convs for strict
+    GPU<->CPU label parity (chip_smoke.py phase 4 measures the agreement on
+    the card).  On CPU the knob is a no-op numerically —
     results must match the default path exactly."""
     ov_vars = OverlapResBLSTM().init_variables(jax.random.PRNGKey(0))
     sp_vars = SpeakerResBLSTM().init_variables(jax.random.PRNGKey(1))
@@ -200,33 +200,6 @@ def test_odd_input_dtypes_cast_to_float32():
         got_l, got_p = pred.predict(buf[None].astype(dtype), n)
         np.testing.assert_array_equal(np.asarray(got_l), np.asarray(want_l))
         np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
-
-
-def test_pallas_predictor_path_and_config_guard():
-    """OverlapPredictor(use_pallas=True): labels must match the jnp
-    featurizer path exactly (the kernel is correctness-pinned), and a
-    feature config that disables the hardcoded PNG quantize / row flip is
-    refused rather than silently diverging between the paths."""
-    import dataclasses
-
-    import pytest
-
-    from mmla_audio_tpu.core.config import OverlapFeatureConfig
-
-    cfg = OverlapModelConfig(stage_filters=(4, 4, 4), lstm_units=8)
-    variables = OverlapResBLSTM(cfg).init_variables(jax.random.PRNGKey(0))
-    buf = synth_speech_i16(40960, seed=11)[None]
-    n = np.array([40960], np.int32)
-    ref_l, ref_p = OverlapPredictor(variables, model_cfg=cfg).predict(buf, n)
-    pal_l, pal_p = OverlapPredictor(variables, model_cfg=cfg,
-                                    use_pallas=True).predict(buf, n)
-    np.testing.assert_array_equal(np.asarray(pal_l), np.asarray(ref_l))
-    np.testing.assert_allclose(np.asarray(pal_p), np.asarray(ref_p),
-                               rtol=1e-5, atol=1e-6)
-    with pytest.raises(ValueError, match="use_pallas requires"):
-        OverlapPredictor(variables, model_cfg=cfg, use_pallas=True,
-                         feat_cfg=dataclasses.replace(OverlapFeatureConfig(),
-                                                      png_quantize=False))
 
 
 def test_speaker_predictor_fast_mode_single_window():

@@ -120,6 +120,45 @@ def test_save_load_variables_roundtrip(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_save_load_variables_without_template(tmp_path):
+    """No template: the nested dicts are rebuilt from the saved paths, and
+    the checkpoint is a plain npz keyed by '/'-joined paths + metadata."""
+    v = {"params": {"trunk": {"w": np.arange(6.0).reshape(2, 3)},
+                    "head": {"b": np.zeros(2, np.float32)}},
+         "batch_stats": {"m": np.ones(3, np.float32)}}
+    save_variables(tmp_path / "m", v, {"note": "x"})
+    with np.load(tmp_path / "m" / "variables.npz") as data:
+        assert sorted(data.files) == ["batch_stats/m", "params/head/b",
+                                      "params/trunk/w"]
+    back = load_variables(tmp_path / "m")
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(v)
+    for a, b in zip(jax.tree_util.tree_leaves(v),
+                    jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    import json
+    assert json.loads((tmp_path / "m" / "metadata.json").read_text()) == \
+        {"note": "x"}
+
+
+def test_load_variables_template_mismatch_raises(tmp_path):
+    import pytest
+
+    save_variables(tmp_path / "m", {"params": {"w": np.zeros((2, 3),
+                                                             np.float32)}})
+    with pytest.raises(ValueError, match=r"params/w is float32\[2, 3\]"):
+        load_variables(tmp_path / "m",
+                       {"params": {"w": np.zeros((3, 2), np.float32)}})
+    with pytest.raises(ValueError, match="template wants float64"):
+        load_variables(tmp_path / "m",
+                       {"params": {"w": np.zeros((2, 3), np.float64)}})
+    with pytest.raises(ValueError, match="missing.*params/b"):
+        load_variables(tmp_path / "m",
+                       {"params": {"w": np.zeros((2, 3), np.float32),
+                                   "b": np.zeros(3, np.float32)}})
+
+
 def test_best_checkpointer_keeps_best(tmp_path):
     ck = BestCheckpointer(tmp_path / "best")
     v1 = {"params": {"w": np.array([1.0])}}

@@ -58,9 +58,7 @@ def main():
                     help="print uncovered line spans per file")
     ap.add_argument("--json", metavar="OUT", default=None,
                     help="also write a machine-readable artifact (total "
-                         "percent + per-file percent + uncovered spans) — "
-                         "the per-round committed coverage record "
-                         "(benchmarks/results/coverage_rN.json)")
+                         "percent + per-file percent + uncovered spans)")
     args = ap.parse_args()
 
     with open(args.dump) as f:

@@ -10,7 +10,7 @@ Usage:
     python tools/covreport.py /tmp/cov.json          # uncovered-line report
 
 Only files under ``mmla_audio_tpu/`` are recorded.  Subprocesses (e.g. the
-two-process DCN test) are not traced — their coverage is out of scope for
+two-process test in tests/test_dcn.py) are not traced — their coverage is out of scope for
 this report.
 """
 
